@@ -79,3 +79,8 @@ def property_test(argnames, cases, strategies, max_examples=15):
         return hypothesis.settings(max_examples=max_examples, deadline=None)(
             hypothesis.given(**strategies(_hst))(f))
     return deco
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips with a reason without one")
